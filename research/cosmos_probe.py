@@ -31,7 +31,7 @@ jax.config.update("jax_platforms", "cpu")
 import numpy as np  # noqa: E402
 
 import refjxl  # noqa: E402
-from jxl_coder_tpu import api  # noqa: E402
+from jxl_coder import api  # noqa: E402
 
 CORPUS = "/root/reference/app/src/main/assets/hdr_cosmos.jxl"
 
@@ -51,7 +51,7 @@ def pq_to_linear(e):
 def main():
     data = open(CORPUS, "rb").read()
     ref, _ = refjxl.decode(data, as_float=True)
-    os.environ["JXL_TPU_DEVICE"] = "0"
+    os.environ["JXL_DEVICE"] = "0"
     ours, _ = api.decode(data)
     o = ours.astype(np.float64) / 65535.0
     rraw = ref[..., : o.shape[-1]].astype(np.float64)
@@ -74,14 +74,14 @@ def main():
               f"  linear diff {abs(lo - lr):.2e}")
 
     print("== 3. cancellation structure at worst pixel ==")
-    from jxl_coder_tpu.bitstream import container as cmod
-    from jxl_coder_tpu.bitstream.frame_header import (read_frame_header,
+    from jxl_coder.bitstream import container as cmod
+    from jxl_coder.bitstream.frame_header import (read_frame_header,
                                                       read_toc)
-    from jxl_coder_tpu.bitstream.headers import (DEFAULT_INV_OPSIN,
+    from jxl_coder.bitstream.headers import (DEFAULT_INV_OPSIN,
                                                  DEFAULT_OPSIN_BIAS,
                                                  read_image_header)
-    from jxl_coder_tpu.bitstream.reader import BitReader
-    from jxl_coder_tpu.vardct.dec_real import decode_vardct_frame
+    from jxl_coder.bitstream.reader import BitReader
+    from jxl_coder.vardct.dec_real import decode_vardct_frame
 
     cs = cmod.extract_codestream(data).codestream
     br = BitReader(cs)

@@ -1,6 +1,6 @@
 """Does the lockstep device rANS kernel win in the BATCH regime?
 
-Single-frame it loses ~3x to host C++ (round 3).  Lanes scale with the
+Single-frame it loses to the host C++ path.  Lanes scale with the
 group count, so a K-frame batch decoded in ONE lockstep call has K x
 the lanes at (ideally) the same wall.  This probe measures the kernel
 at lane multiplicity 1/2/4/8 by duplicating the real 4K frame's group
@@ -11,26 +11,26 @@ import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
-os.environ["JXL_TPU_DEVICE"] = "1"
+REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+sys.path.insert(0, REPO)
+os.environ["JXL_DEVICE"] = "1"
 
 import numpy as np
 
-import jax
+from jxl_coder import backend  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jxl_tpu_xla_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+backend.use_compile_cache()
 
-from jxl_coder_tpu.bitstream.reader import BitReader
-from jxl_coder_tpu.bitstream import container as container_mod
-from jxl_coder_tpu.bitstream.headers import read_image_header
-from jxl_coder_tpu.bitstream.frame_header import read_frame_header, read_toc
-from jxl_coder_tpu.vardct import dec_real
-from jxl_coder_tpu.entropy import device as ENTDEV
+from jxl_coder.bitstream.reader import BitReader
+from jxl_coder.bitstream import container as container_mod
+from jxl_coder.bitstream.headers import read_image_header
+from jxl_coder.bitstream.frame_header import read_frame_header, read_toc
+from jxl_coder.vardct import dec_real
+from jxl_coder.entropy import device as ENTDEV
 
 
 def main():
-    data = open("/tmp/jxl_tpu_bench4k_v2.jxl", "rb").read()
+    data = open(os.path.join(REPO, ".bench_cache", "bench4k_v2.jxl"), "rb").read()
     cs = container_mod.extract_codestream(data).codestream
     br = BitReader(cs)
     hdr = read_image_header(br)
@@ -81,7 +81,7 @@ def main():
         return
     num_ctxs = lf.bcm.num_ctxs
 
-    from jxl_coder_tpu.vardct.dec_real import _lf_group_view
+    from jxl_coder.vardct.dec_real import _lf_group_view
     gd_b = 32
     gx = -(-xs_b // gd_b)
 

@@ -21,9 +21,9 @@ sys.path.insert(0, "/root/repo")
 
 import numpy as np
 
-from jxl_coder_tpu.bitstream.reader import BitReader, BitstreamError
-from jxl_coder_tpu.entropy.ans import AliasTable, ANS_TAB_SIZE
-from jxl_coder_tpu.entropy.coder import HybridUintConfig, Lz77Params
+from jxl_coder.bitstream.reader import BitReader, BitstreamError
+from jxl_coder.entropy.ans import AliasTable, ANS_TAB_SIZE
+from jxl_coder.entropy.coder import HybridUintConfig, Lz77Params
 
 
 def u8(br):
@@ -86,7 +86,7 @@ def read_dist(br, cand, log_alpha):
         n = u8(br) + 1
         if n > (1 << log_alpha):
             raise BitstreamError("flat too big")
-        from jxl_coder_tpu.entropy.ans import flat_counts
+        from jxl_coder.entropy.ans import flat_counts
         return flat_counts(n)
     raise BitstreamError("complex (not searched)")
 
@@ -148,7 +148,7 @@ def try_candidate(sec, cand, verbose=False):
         return cfgs[cl].read_value(token, br)
 
     # decode tree
-    from jxl_coder_tpu.bitstream.reader import unpack_signed
+    from jxl_coder.bitstream.reader import unpack_signed
     nodes = []
     to_decode = 1
     leaves = 0

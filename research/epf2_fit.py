@@ -11,13 +11,13 @@ import sys
 
 sys.path.insert(0, "/root/repo")
 sys.path.insert(0, "/root/repo/research")
-os.environ["JXL_TPU_NO_NATIVE"] = "1"
+os.environ["JXL_NO_NATIVE"] = "1"
 
 import numpy as np
 import refjxl
 from epf_fit import planes_to_stream
-from jxl_coder_tpu.vardct import dec_real
-from jxl_coder_tpu import api
+from jxl_coder.vardct import dec_real
+from jxl_coder import api
 
 KINV = dec_real.KINV_SIGMA
 CSCALE = dec_real.EPF_CHANNEL_SCALE
@@ -95,7 +95,7 @@ def main():
             (X, Y, B, sig, _), _ = capture_pass2_input(data)
             cases.append((qf, X, Y, B, sig, tgt))
 
-    from jxl_coder_tpu.vardct.dec_real import xyb_planes_to_srgb
+    from jxl_coder.vardct.dec_real import xyb_planes_to_srgb
 
     def score(slope, gate, border_mul, border_on_sad=True):
         tot = 0.0

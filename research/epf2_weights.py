@@ -14,17 +14,17 @@ import sys
 
 sys.path.insert(0, "/root/repo")
 sys.path.insert(0, "/root/repo/research")
-os.environ["JXL_TPU_NO_NATIVE"] = "1"
+os.environ["JXL_NO_NATIVE"] = "1"
 
 import numpy as np
 import refjxl
 from epf_fit import planes_to_stream
-from jxl_coder_tpu.vardct import dec_real
+from jxl_coder.vardct import dec_real
 import epf2_fit
 
 _BIAS = 0.0037930732552754493
 _CBRT = np.cbrt(_BIAS)
-from jxl_coder_tpu.bitstream.headers import DEFAULT_INV_OPSIN
+from jxl_coder.bitstream.headers import DEFAULT_INV_OPSIN
 _INV = np.array(DEFAULT_INV_OPSIN, np.float64).reshape(3, 3)
 _FWD = np.linalg.inv(_INV)
 

@@ -4,7 +4,7 @@ impulse/step responses from libjxl's float output."""
 import sys, os
 sys.path.insert(0, "/root/repo")
 sys.path.insert(0, "/root/repo/research")
-os.environ.setdefault("JXL_TPU_NO_NATIVE", "1")
+os.environ.setdefault("JXL_NO_NATIVE", "1")
 
 import numpy as np
 import refjxl
@@ -36,7 +36,7 @@ def srgb_to_xyb(f):
 def plane_to_stream(Yplane, qf=64, gs=65536, epf_iters=0, sharpness=0,
                     qdc=1):
     """Build a stream whose decoded Y approximates Yplane, X=0, B=Y."""
-    from jxl_coder_tpu.vardct.tables_real import DCT8_TABLE
+    from jxl_coder.vardct.tables_real import DCT8_TABLE
     H, W = Yplane.shape
     ys_b, xs_b = H // 8, W // 8
     igs = 65536.0 / gs
@@ -65,15 +65,15 @@ def plane_to_stream(Yplane, qf=64, gs=65536, epf_iters=0, sharpness=0,
 def craft_epf(dc, coeffs, gs, qdc, qf, W, H, epf_iters, sharpness):
     """craft() with configurable epf_iters + uniform sharpness."""
     import numpy as np
-    from jxl_coder_tpu.bitstream.writer import BitWriter
-    from jxl_coder_tpu.bitstream.headers import (ImageHeader, ImageMetadata,
+    from jxl_coder.bitstream.writer import BitWriter
+    from jxl_coder.bitstream.headers import (ImageHeader, ImageMetadata,
                                                  SizeHeader)
-    from jxl_coder_tpu.bitstream.frame_header import (FrameHeader, Encoding,
+    from jxl_coder.bitstream.frame_header import (FrameHeader, Encoding,
                                                       write_frame_header,
                                                       write_toc)
-    from jxl_coder_tpu.codec import write_image_header
-    from jxl_coder_tpu.entropy.coder import TokenStream
-    from jxl_coder_tpu.modular.image import Channel
+    from jxl_coder.codec import write_image_header
+    from jxl_coder.entropy.coder import TokenStream
+    from jxl_coder.modular.image import Channel
     ys_b, xs_b = H // 8, W // 8
     m = ImageMetadata()
     hdr = ImageHeader(size=SizeHeader(xsize=W, ysize=H), metadata=m)

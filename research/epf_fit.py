@@ -11,13 +11,13 @@ Model under test (spec structure):
 import sys, os
 sys.path.insert(0, "/root/repo")
 sys.path.insert(0, "/root/repo/research")
-os.environ.setdefault("JXL_TPU_NO_NATIVE", "1")
+os.environ.setdefault("JXL_NO_NATIVE", "1")
 
 import numpy as np
 import refjxl
 from vardct_write import craft_blocks
-from jxl_coder_tpu.vardct.dec_real import ZIGZAG8
-from jxl_coder_tpu.vardct.synthesis import ana_basis, dequant_table
+from jxl_coder.vardct.dec_real import ZIGZAG8
+from jxl_coder.vardct.synthesis import ana_basis, dequant_table
 from strategy_calib import decode_xyb
 
 ANA = ana_basis(8)

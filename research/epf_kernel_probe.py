@@ -11,12 +11,12 @@ import sys
 
 sys.path.insert(0, "/root/repo")
 sys.path.insert(0, "/root/repo/research")
-os.environ["JXL_TPU_NO_NATIVE"] = "1"
+os.environ["JXL_NO_NATIVE"] = "1"
 
 import numpy as np
 import refjxl
 import vardct_write
-from jxl_coder_tpu.vardct.dec_real import ZIGZAG8
+from jxl_coder.vardct.dec_real import ZIGZAG8
 from epf_fit import ANA
 from epf2_weights import srgb_to_xyb
 

@@ -14,9 +14,9 @@ import numpy as np
 import refjxl
 from PIL import Image
 
-from jxl_coder_tpu.jpeg import jbrd as J
-from jxl_coder_tpu.jpeg.parser import parse_jpeg
-from jxl_coder_tpu.utils import brotli_ffi
+from jxl_coder.jpeg import jbrd as J
+from jxl_coder.jpeg.parser import parse_jpeg
+from jxl_coder.utils import brotli_ffi
 
 
 def get_jbrd(jxl):
@@ -46,7 +46,7 @@ def split_bundle(payload):
     brotli_bytes)."""
     d = J.parse_jbrd(payload)
     # re-derive the split point by re-parsing
-    from jxl_coder_tpu.bitstream.reader import BitReader
+    from jxl_coder.bitstream.reader import BitReader
     return d
 
 

@@ -16,8 +16,8 @@ sys.path.insert(0, "/root/repo/research")
 import numpy as np
 import refjxl
 from PIL import Image
-from jxl_coder_tpu.bitstream.reader import BitReader
-from jxl_coder_tpu.jpeg.parser import parse_jpeg
+from jxl_coder.bitstream.reader import BitReader
+from jxl_coder.jpeg.parser import parse_jpeg
 
 
 def get_jbrd(jxl):

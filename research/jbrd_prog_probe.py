@@ -28,11 +28,11 @@ import numpy as np
 from PIL import Image
 
 import refjxl
-from jxl_coder_tpu.bitstream import container as C
-from jxl_coder_tpu.bitstream.reader import BitReader
-from jxl_coder_tpu.jpeg import jbrd as JB
-from jxl_coder_tpu.jpeg.parser import parse_jpeg
-from jxl_coder_tpu.utils import brotli_ffi
+from jxl_coder.bitstream import container as C
+from jxl_coder.bitstream.reader import BitReader
+from jxl_coder.jpeg import jbrd as JB
+from jxl_coder.jpeg.parser import parse_jpeg
+from jxl_coder.utils import brotli_ffi
 
 
 def probe(jpeg: bytes, label: str) -> None:

@@ -7,15 +7,15 @@ import os
 
 sys.path.insert(0, "/root/repo")
 sys.path.insert(0, "/root/repo/research")
-os.environ["JXL_TPU_NO_NATIVE"] = "1"
+os.environ["JXL_NO_NATIVE"] = "1"
 
 import numpy as np
 
-import jxl_coder_tpu.entropy.coder as EC
-from jxl_coder_tpu.bitstream.reader import BitReader, BitstreamError
-from jxl_coder_tpu.entropy.prefix import read_prefix_code
-from jxl_coder_tpu.entropy import ans as _ans
-from jxl_coder_tpu.entropy.ans import AliasTable, AnsState
+import jxl_coder.entropy.coder as EC
+from jxl_coder.bitstream.reader import BitReader, BitstreamError
+from jxl_coder.entropy.prefix import read_prefix_code
+from jxl_coder.entropy import ans as _ans
+from jxl_coder.entropy.ans import AliasTable, AnsState
 
 
 VARIANTS = dict(
@@ -110,7 +110,7 @@ class EntropyDecoderV(EC.EntropyDecoder):
 
 def main():
     import refjxl
-    from jxl_coder_tpu import api
+    from jxl_coder import api
 
     EC_orig = EC.EntropyDecoder
     streams = []
@@ -128,8 +128,8 @@ def main():
         CURRENT.update(dict(zip(keys, combo)))
         # monkeypatch everywhere EntropyDecoder is referenced
         EC.EntropyDecoder = EntropyDecoderV
-        import jxl_coder_tpu.modular.tree as MT
-        import jxl_coder_tpu.modular.stream as MS
+        import jxl_coder.modular.tree as MT
+        import jxl_coder.modular.stream as MS
         MT.EntropyDecoder = EntropyDecoderV
         MS.EntropyDecoder = EntropyDecoderV
         score = 0

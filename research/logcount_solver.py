@@ -25,7 +25,7 @@ import itertools
 
 sys.path.insert(0, "/root/repo")
 
-from jxl_coder_tpu.bitstream.reader import BitReader, BitstreamError
+from jxl_coder.bitstream.reader import BitReader, BitstreamError
 
 
 def u8(br):
@@ -258,7 +258,7 @@ def main():
     # position of dist0: [hgt][lz_ad][cmap...][prefix][log_alpha][cfgs]
     br = BitReader(sec)
     br.u(1)
-    from jxl_coder_tpu.entropy.coder import Lz77Params, read_cluster_map, \
+    from jxl_coder.entropy.coder import Lz77Params, read_cluster_map, \
         HybridUintConfig
     lz = Lz77Params.read(br)
     assert not lz.enabled

@@ -1,14 +1,14 @@
 import numpy as np, sys
 sys.path.insert(0, '/root/repo'); sys.path.insert(0, '/root/repo/research')
 import vardct_write as VW
-from jxl_coder_tpu.bitstream.writer import BitWriter
-from jxl_coder_tpu.bitstream.headers import ImageHeader, ImageMetadata, SizeHeader
-from jxl_coder_tpu.bitstream.frame_header import (FrameHeader, Encoding, Passes,
+from jxl_coder.bitstream.writer import BitWriter
+from jxl_coder.bitstream.headers import ImageHeader, ImageMetadata, SizeHeader
+from jxl_coder.bitstream.frame_header import (FrameHeader, Encoding, Passes,
     write_frame_header, write_toc)
-from jxl_coder_tpu.codec import write_image_header
-from jxl_coder_tpu.entropy.coder import TokenStream
-from jxl_coder_tpu.modular.image import Channel
-from jxl_coder_tpu.vardct.enc_real import NUM_CTXS
+from jxl_coder.codec import write_image_header
+from jxl_coder.entropy.coder import TokenStream
+from jxl_coder.modular.image import Channel
+from jxl_coder.vardct.enc_real import NUM_CTXS
 
 def craft_two_pass(dc, varblocks, shift=1, gs=65536, qdc=16, W=64, H=64):
     """varblocks: (bx, by, strategy, {c: scan vals (TOTAL)}, qf); values

@@ -3,18 +3,18 @@
 Method: craft real-format VarDCT streams that decode to a flat base
 image, attach a spline via the kSplines frame flag, float-decode with
 libjxl, invert sRGB->XYB, and compare the residual blob against our
-renderer (jxl_coder_tpu/vardct/splines.py).
+renderer (jxl_coder/vardct/splines.py).
 """
 import sys, os
 sys.path.insert(0, "/root/repo")
 sys.path.insert(0, "/root/repo/research")
-os.environ.setdefault("JXL_TPU_NO_NATIVE", "1")
+os.environ.setdefault("JXL_NO_NATIVE", "1")
 
 import numpy as np
 import refjxl
 from vardct_write import craft_blocks
 from epf_extract import srgb_to_xyb
-from jxl_coder_tpu.vardct.splines import Splines, QuantizedSpline
+from jxl_coder.vardct.splines import Splines, QuantizedSpline
 
 
 def flat_stream(splines=None, W=64, H=64):

@@ -1,19 +1,20 @@
 """Fast-iteration stage bench: device reconstruction throughput on the
 real parsed 4K state (the bench.py stage metric), with the parsed state
-pickled to /tmp so reruns skip the ~25 s host entropy decode."""
+pickled to .bench_cache/ so reruns skip the host entropy decode."""
 
 import os
 import pickle
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
-os.environ.setdefault("JXL_TPU_DEVICE", "1")
+REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+sys.path.insert(0, REPO)
+os.environ.setdefault("JXL_DEVICE", "1")
 
 import numpy as np
 
-STATE_CACHE = "/tmp/jxl_tpu_bench4k_state.pkl"
-STREAM_CACHE = "/tmp/jxl_tpu_bench4k_v2.jxl"
+STATE_CACHE = os.path.join(REPO, ".bench_cache", "bench4k_state.pkl")
+STREAM_CACHE = os.path.join(REPO, ".bench_cache", "bench4k_v2.jxl")
 W, H = 3840, 2160
 K = 16
 
@@ -22,12 +23,12 @@ def get_state():
     if os.path.exists(STATE_CACHE):
         with open(STATE_CACHE, "rb") as f:
             return pickle.load(f)
-    from jxl_coder_tpu.bitstream.reader import BitReader
-    from jxl_coder_tpu.bitstream import container as container_mod
-    from jxl_coder_tpu.bitstream.headers import read_image_header
-    from jxl_coder_tpu.bitstream.frame_header import (read_frame_header,
+    from jxl_coder.bitstream.reader import BitReader
+    from jxl_coder.bitstream import container as container_mod
+    from jxl_coder.bitstream.headers import read_image_header
+    from jxl_coder.bitstream.frame_header import (read_frame_header,
                                                       read_toc)
-    from jxl_coder_tpu.vardct import dec_real
+    from jxl_coder.vardct import dec_real
     data = open(STREAM_CACHE, "rb").read()
     cs = container_mod.extract_codestream(data).codestream
     br = BitReader(cs)
@@ -50,10 +51,10 @@ def get_state():
 def main():
     import jax
     import jax.numpy as jnp
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jxl_tpu_xla_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from jxl_coder import backend
+    backend.use_compile_cache()
 
-    from jxl_coder_tpu.vardct import tpu_full as TF
+    from jxl_coder.vardct import device_full as TF
     state = get_state()
     lf, fh = state["lf"], state["fh"]
     t0 = time.perf_counter()

@@ -1,17 +1,17 @@
 """Calibrate all AC strategies against libjxl: scan->basis orders,
 dequant tables, and response matrices for the non-DCT transforms.
-Writes jxl_coder_tpu/vardct/calib_real.npz.
+Writes jxl_coder/vardct/calib_real.npz.
 """
 import sys, os
 sys.path.insert(0, "/root/repo")
 sys.path.insert(0, "/root/repo/research")
-os.environ.setdefault("JXL_TPU_NO_NATIVE", "1")
+os.environ.setdefault("JXL_NO_NATIVE", "1")
 
 import numpy as np
 import refjxl
 from vardct_write import craft_blocks
-from jxl_coder_tpu.vardct.strategies import STRATEGIES
-from jxl_coder_tpu.vardct.synthesis import (ana_basis, llf_from_dc)
+from jxl_coder.vardct.strategies import STRATEGIES
+from jxl_coder.vardct.synthesis import (ana_basis, llf_from_dc)
 
 BIAS = 0.0037930732552754493
 CBRT_BIAS = np.cbrt(BIAS)
@@ -215,7 +215,8 @@ if __name__ == "__main__":
             print(f"{s.name}: order+table ok, llf err={err:.2e}")
         except Exception as e:
             print(f"{s.name}: FAILED: {e}")
-    path = "/root/repo/jxl_coder_tpu/vardct/calib_real.npz"
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "jxl_coder", "vardct", "calib_real.npz")
     if os.path.exists(path):
         old = dict(np.load(path))
         old.update(out)

@@ -8,7 +8,7 @@ decoder, decode the full-size float output with libjxl, and solve the
 per-phase linear system.  The min/max window clamp makes some rows
 nonlinear; those are rejected iteratively (they show up as outliers).
 
-Writes jxl_coder_tpu/ops/upsample_calib.npz with up4/up8 kernels.
+Writes jxl_coder/ops/upsample_calib.npz with up4/up8 kernels.
 Verification: tests/test_ops_animation.py round-trips RESAMPLING
 streams bit-exactly through the public API.
 """
@@ -23,12 +23,12 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import refjxl  # noqa: E402
 from encopts import encode_opts  # noqa: E402  (ctypes SetOption helper)
-from jxl_coder_tpu.bitstream.container import extract_codestream  # noqa
-from jxl_coder_tpu.bitstream.reader import BitReader  # noqa: E402
-from jxl_coder_tpu.bitstream.headers import read_image_header  # noqa
-from jxl_coder_tpu.bitstream.frame_header import (  # noqa: E402
+from jxl_coder.bitstream.container import extract_codestream  # noqa
+from jxl_coder.bitstream.reader import BitReader  # noqa: E402
+from jxl_coder.bitstream.headers import read_image_header  # noqa
+from jxl_coder.bitstream.frame_header import (  # noqa: E402
     read_frame_header, read_toc)
-from jxl_coder_tpu import codec  # noqa: E402
+from jxl_coder import codec  # noqa: E402
 
 # the decoder now upsamples internally; calibration needs the raw
 # coded-resolution planes
@@ -114,7 +114,7 @@ def main():
     for n in (4, 8):
         out[f"up{n}"] = fit_kernels(n)
     path = os.path.join(os.path.dirname(__file__), "..",
-                        "jxl_coder_tpu", "ops", "upsample_calib.npz")
+                        "jxl_coder", "ops", "upsample_calib.npz")
     np.savez(path, **out)
     print("wrote", os.path.abspath(path))
 

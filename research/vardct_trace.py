@@ -6,19 +6,19 @@ using section byte-ends and refjxl pixel output as oracles.
 import sys, os
 sys.path.insert(0, "/root/repo")
 sys.path.insert(0, "/root/repo/research")
-os.environ["JXL_TPU_NO_NATIVE"] = "1"
+os.environ["JXL_NO_NATIVE"] = "1"
 
 import numpy as np
 import refjxl
-from jxl_coder_tpu.bitstream.reader import BitReader, unpack_signed
-from jxl_coder_tpu.bitstream.headers import read_image_header
-from jxl_coder_tpu.bitstream.frame_header import read_frame_header, read_toc
-from jxl_coder_tpu.codec import read_dc_quant
-from jxl_coder_tpu.entropy.coder import (read_cluster_map, EntropyCode,
+from jxl_coder.bitstream.reader import BitReader, unpack_signed
+from jxl_coder.bitstream.headers import read_image_header
+from jxl_coder.bitstream.frame_header import read_frame_header, read_toc
+from jxl_coder.codec import read_dc_quant
+from jxl_coder.entropy.coder import (read_cluster_map, EntropyCode,
                                          EntropyDecoder)
-from jxl_coder_tpu.modular.tree import decode_tree
-from jxl_coder_tpu.modular.stream import decode_modular_stream
-from jxl_coder_tpu.modular.image import Channel, ModularImage
+from jxl_coder.modular.tree import decode_tree
+from jxl_coder.modular.stream import decode_modular_stream
+from jxl_coder.modular.image import Channel, ModularImage
 
 
 def parse_lf_global(sbr, fh, xs_blocks, ys_blocks):

@@ -5,24 +5,24 @@ for dequant tables, transform conventions and scan orders.
 import sys, os
 sys.path.insert(0, "/root/repo")
 sys.path.insert(0, "/root/repo/research")
-os.environ.setdefault("JXL_TPU_NO_NATIVE", "1")
+os.environ.setdefault("JXL_NO_NATIVE", "1")
 
 import numpy as np
 
-from jxl_coder_tpu.bitstream.writer import BitWriter
-from jxl_coder_tpu.bitstream.reader import pack_signed
-from jxl_coder_tpu.bitstream.headers import (ImageHeader, ImageMetadata,
+from jxl_coder.bitstream.writer import BitWriter
+from jxl_coder.bitstream.reader import pack_signed
+from jxl_coder.bitstream.headers import (ImageHeader, ImageMetadata,
                                              SizeHeader)
-from jxl_coder_tpu.bitstream.frame_header import (FrameHeader, Encoding,
+from jxl_coder.bitstream.frame_header import (FrameHeader, Encoding,
                                                   write_frame_header,
                                                   write_toc)
-from jxl_coder_tpu.codec import write_image_header
-from jxl_coder_tpu.entropy.coder import TokenStream
-from jxl_coder_tpu.modular.image import Channel, ModularImage
-from jxl_coder_tpu.modular.stream import GroupHeader, encode_modular_stream
-from jxl_coder_tpu.modular.tree import Tree
-from jxl_coder_tpu.vardct.strategies import STRATEGIES
-from jxl_coder_tpu.vardct.dec_real import (nonzero_ctx, zero_density_ctx,
+from jxl_coder.codec import write_image_header
+from jxl_coder.entropy.coder import TokenStream
+from jxl_coder.modular.image import Channel, ModularImage
+from jxl_coder.modular.stream import GroupHeader, encode_modular_stream
+from jxl_coder.modular.tree import Tree
+from jxl_coder.vardct.strategies import STRATEGIES
+from jxl_coder.vardct.dec_real import (nonzero_ctx, zero_density_ctx,
                                            DEFAULT_CTX_MAP)
 
 NUM_CTXS = 15  # default block ctx map
@@ -151,7 +151,7 @@ def craft_blocks(dc, varblocks, gs=65536, qdc=16, W=64, H=64,
         # band => uniform AC step 1/(64*w), independent of sigma —
         # used by the EPF asymptotic-kernel probes
         sec.bool(False)
-        from jxl_coder_tpu.vardct.quant_tables import NUM_QUANT_TABLES
+        from jxl_coder.vardct.quant_tables import NUM_QUANT_TABLES
         for i in range(NUM_QUANT_TABLES):
             if i == 0:
                 sec.u(6, 3)           # MODE_DCT
@@ -177,7 +177,7 @@ def craft(dc, coeffs, gs=65536, qdc=16, qf=16, W=64, H=64,
           x_qm_scale=2, b_qm_scale=2):
     """Back-compat DCT8-only interface: coeffs (3, by, bx, 64) in
     STORED layout; converted to scan-index via zigzag."""
-    from jxl_coder_tpu.vardct.dec_real import ZIGZAG8
+    from jxl_coder.vardct.dec_real import ZIGZAG8
     ys_b, xs_b = H // 8, W // 8
     varblocks = []
     for by in range(ys_b):

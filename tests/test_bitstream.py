@@ -10,11 +10,11 @@ import pytest
 
 from conftest import asset, all_assets
 
-from jxl_coder_tpu.bitstream.reader import BitReader, unpack_signed, pack_signed
-from jxl_coder_tpu.bitstream.container import extract_codestream, is_jxl
-from jxl_coder_tpu.bitstream.headers import read_image_header
-from jxl_coder_tpu.bitstream.frame_header import read_frame_header, read_toc
-from jxl_coder_tpu import api
+from jxl_coder.bitstream.reader import BitReader, unpack_signed, pack_signed
+from jxl_coder.bitstream.container import extract_codestream, is_jxl
+from jxl_coder.bitstream.headers import read_image_header
+from jxl_coder.bitstream.frame_header import read_frame_header, read_toc
+from jxl_coder import api
 
 
 # ---- primitives ----------------------------------------------------------
@@ -145,11 +145,11 @@ def test_total_size_ceiling():
     InvalidImageSizeError BEFORE any allocation — the reference's
     w*h*4*bpp < 2^31 guard (interop/JxlDecoding.cpp:103-109)."""
     import numpy as np
-    from jxl_coder_tpu.bitstream.writer import BitWriter
-    from jxl_coder_tpu.bitstream.headers import (ImageHeader,
+    from jxl_coder.bitstream.writer import BitWriter
+    from jxl_coder.bitstream.headers import (ImageHeader,
                                                  ImageMetadata, SizeHeader)
-    from jxl_coder_tpu.codec import write_image_header
-    from jxl_coder_tpu import api
+    from jxl_coder.codec import write_image_header
+    from jxl_coder import api
     import pytest
     hdr = ImageHeader(size=SizeHeader(xsize=10 ** 6, ysize=10 ** 6),
                       metadata=ImageMetadata())
@@ -159,7 +159,7 @@ def test_total_size_ceiling():
     for fn in (api.decode, api.decode_frames, api.decode_thumbnail):
         with pytest.raises(api.InvalidImageSizeError):
             fn(data)
-    from jxl_coder_tpu.animation import AnimatedImage
+    from jxl_coder.animation import AnimatedImage
     with pytest.raises(api.InvalidImageSizeError):
         AnimatedImage(data)
     # the boundary itself: just-under passes the size check (then fails
@@ -178,8 +178,8 @@ def test_animated_get_frame_thread_safety():
     interop/JxlAnimatedDecoder.hpp:235)."""
     import threading
     import numpy as np
-    from jxl_coder_tpu import api
-    from jxl_coder_tpu.animation import AnimatedImage, AnimatedEncoder
+    from jxl_coder import api
+    from jxl_coder.animation import AnimatedImage, AnimatedEncoder
     rng = np.random.default_rng(5)
     enc = AnimatedEncoder(width=40, height=32, num_loops=0)
     frames = [rng.integers(0, 256, (32, 40, 3)).astype(np.uint8)
@@ -217,7 +217,7 @@ def test_bitflip_fuzz_typed_errors():
     sweep covers the smallest corpus file's whole header."""
     import os
     import numpy as np
-    from jxl_coder_tpu import api
+    from jxl_coder import api
     assets = "/root/reference/app/src/main/assets"
     if not os.path.isdir(assets):
         import pytest

@@ -1,11 +1,11 @@
 """Device post-stage coverage: frames with patches, splines, noise,
 upsampling and non-sRGB output encodings must take the DEVICE
-reconstruction path (tpu_full post stages) and match the host oracle.
+reconstruction path (device_full post stages) and match the host oracle.
 
 Mirrors the reference, where one libjxl render pipeline serves every
 stream (interop/JxlDecoding.cpp:74-175) — round-4 VERDICT missing #1.
-Runs on the CPU backend (conftest) with JXL_TPU_DEVICE=1 + STRICT so
-any silent fallback to host is an error.
+Runs on the CPU backend (conftest) with JXL_DEVICE=1; a device
+failure raises, so nothing falls back to the host unseen.
 """
 import os
 import sys
@@ -22,7 +22,7 @@ try:
 except Exception:
     HAVE_LIBJXL = False
 
-from jxl_coder_tpu import api  # noqa: E402
+from jxl_coder import api  # noqa: E402
 
 
 def _smooth(size):
@@ -32,10 +32,9 @@ def _smooth(size):
 
 
 def _dev_vs_host(data, monkeypatch, tol):
-    monkeypatch.setenv("JXL_TPU_DEVICE", "0")
+    monkeypatch.setenv("JXL_DEVICE", "0")
     host, _ = api.decode(data)
-    monkeypatch.setenv("JXL_TPU_DEVICE", "1")
-    monkeypatch.setenv("JXL_TPU_DEVICE_STRICT", "1")
+    monkeypatch.setenv("JXL_DEVICE", "1")
     dev, _ = api.decode(data)
     assert dev.shape == host.shape and dev.dtype == host.dtype
     d = np.abs(dev[..., :3].astype(np.int64)
@@ -96,10 +95,9 @@ def test_device_pq_output(monkeypatch):
     ce = refjxl.make_color_encoding(transfer_function=16)
     data = refjxl.encode_ex(img, distance=1.0, effort=7,
                             color_encoding=ce, intensity_target=4000.0)
-    monkeypatch.setenv("JXL_TPU_DEVICE", "0")
+    monkeypatch.setenv("JXL_DEVICE", "0")
     host, _ = api.decode(data)
-    monkeypatch.setenv("JXL_TPU_DEVICE", "1")
-    monkeypatch.setenv("JXL_TPU_DEVICE_STRICT", "1")
+    monkeypatch.setenv("JXL_DEVICE", "1")
     dev, _ = api.decode(data)
     d = np.abs(dev[..., :3].astype(np.int64)
                - host[..., :3].astype(np.int64))
@@ -125,7 +123,7 @@ def test_device_splines_stream(monkeypatch):
     """Crafted kSplines stream: the device post-stage overlay must
     match the host spline renderer."""
     import vardct_write
-    from jxl_coder_tpu.vardct.splines import Splines, QuantizedSpline
+    from jxl_coder.vardct.splines import Splines, QuantizedSpline
 
     W = H = 64
     ys_b, xs_b = H // 8, W // 8
@@ -152,10 +150,10 @@ def test_device_splines_stream(monkeypatch):
 # a byte-truncated stream renders its complete received passes.
 
 def _toc_layout(data):
-    from jxl_coder_tpu.bitstream import container as C
-    from jxl_coder_tpu.bitstream.reader import BitReader
-    from jxl_coder_tpu.bitstream.headers import read_image_header
-    from jxl_coder_tpu.bitstream.frame_header import (read_frame_header,
+    from jxl_coder.bitstream import container as C
+    from jxl_coder.bitstream.reader import BitReader
+    from jxl_coder.bitstream.headers import read_image_header
+    from jxl_coder.bitstream.frame_header import (read_frame_header,
                                                       read_toc)
     cs = C.extract_codestream(data).codestream
     br = BitReader(cs)
@@ -218,11 +216,10 @@ def test_decode_sampled_quarter_fast_path(monkeypatch):
     """Targets between 1/8 and 1/4 take the device downsample path
     (box-average before the pixel download); output must track the
     full-decode-then-resize reference closely."""
-    from jxl_coder_tpu.ops.resize import rescale_image
+    from jxl_coder.ops.resize import rescale_image
     img = _smooth(256)
     data = api.encode(img, lossless=False, quality=90)
-    monkeypatch.setenv("JXL_TPU_DEVICE", "1")
-    monkeypatch.setenv("JXL_TPU_DEVICE_STRICT", "1")
+    monkeypatch.setenv("JXL_DEVICE", "1")
     q = api._decode_downsampled(data, 4)
     assert q is not None
     quarter, info = q

@@ -9,8 +9,8 @@ import os
 import numpy as np
 import pytest
 
-from jxl_coder_tpu import api
-from jxl_coder_tpu.vardct.enc_real import encode_vardct_real
+from jxl_coder import api
+from jxl_coder.vardct.enc_real import encode_vardct_real
 
 
 def _test_image(h=160, w=256):
@@ -25,8 +25,7 @@ def _test_image(h=160, w=256):
 
 @pytest.fixture
 def device_encoder(monkeypatch):
-    monkeypatch.setenv("JXL_TPU_DEVICE", "1")
-    monkeypatch.setenv("JXL_TPU_DEVICE_STRICT", "1")
+    monkeypatch.setenv("JXL_DEVICE", "1")
 
 
 def _psnr(a, b):
@@ -37,7 +36,7 @@ def _psnr(a, b):
 def test_device_encode_matches_host_quality(device_encoder):
     img = _test_image()
     d_dev = encode_vardct_real(img, distance=1.0, effort=7)
-    os.environ["JXL_TPU_DEVICE"] = "0"
+    os.environ["JXL_DEVICE"] = "0"
     d_host = encode_vardct_real(img, distance=1.0, effort=7)
     out_dev, _ = api.decode(d_dev)
     out_host, _ = api.decode(d_host)

@@ -12,9 +12,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
 
 HAVE_LIBJXL = bool(ctypes.util.find_library("jxl"))
 
-from jxl_coder_tpu import api  # noqa: E402
-from jxl_coder_tpu.vardct import enc_patches as EP  # noqa: E402
-from jxl_coder_tpu.vardct.enc_real import encode_vardct_real  # noqa: E402
+from jxl_coder import api  # noqa: E402
+from jxl_coder.vardct import enc_patches as EP  # noqa: E402
+from jxl_coder.vardct.enc_real import encode_vardct_real  # noqa: E402
 
 
 def _text_image(flat=True):
@@ -104,7 +104,7 @@ def test_screen_content_mode_decision():
     assert _psnr(out, img) >= 45.0
     # the decision remains live: force the no-patch path and the
     # lossless fallback must kick in
-    from jxl_coder_tpu.vardct import enc_patches as EP
+    from jxl_coder.vardct import enc_patches as EP
     orig = EP.detect
     EP.detect = lambda *_a, **_k: None
     try:

@@ -5,12 +5,12 @@ import random
 
 import pytest
 
-from jxl_coder_tpu.bitstream.reader import BitReader
-from jxl_coder_tpu.bitstream.writer import BitWriter
-from jxl_coder_tpu.entropy.prefix import (
+from jxl_coder.bitstream.reader import BitReader
+from jxl_coder.bitstream.writer import BitWriter
+from jxl_coder.entropy.prefix import (
     PrefixCode, read_prefix_code, write_prefix_code, build_code_lengths)
-from jxl_coder_tpu.entropy import ans as A
-from jxl_coder_tpu.entropy.coder import (
+from jxl_coder.entropy import ans as A
+from jxl_coder.entropy.coder import (
     HybridUintConfig, TokenStream, EntropyDecoder)
 
 
@@ -238,7 +238,7 @@ def test_cluster_histograms_vectorized_matches_dict():
     """The dense-array clustering must reproduce the dict oracle's
     assignments (same algorithm, costs and tie order)."""
     import numpy as np
-    from jxl_coder_tpu.entropy import coder as EC
+    from jxl_coder.entropy import coder as EC
     rng = np.random.default_rng(0)
     for _trial in range(4):
         n = int(rng.integers(5, 150))

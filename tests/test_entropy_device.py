@@ -19,18 +19,16 @@ try:
 except Exception:
     HAVE_LIBJXL = False
 
-from jxl_coder_tpu import api  # noqa: E402
+from jxl_coder import api  # noqa: E402
 
 
 def _decode_both(data):
     out_host, _ = api.decode(data)
-    os.environ["JXL_TPU_ENTROPY"] = "1"
-    os.environ["JXL_TPU_ENTROPY_STRICT"] = "1"
+    os.environ["JXL_ENTROPY"] = "1"
     try:
         out_dev, _ = api.decode(data)
     finally:
-        os.environ["JXL_TPU_ENTROPY"] = "0"
-        os.environ.pop("JXL_TPU_ENTROPY_STRICT", None)
+        os.environ["JXL_ENTROPY"] = "0"
     return out_host, out_dev
 
 
@@ -49,7 +47,7 @@ def test_device_entropy_bit_exact_libjxl_stream(dist, effort):
 
 
 def test_device_entropy_bit_exact_own_stream():
-    from jxl_coder_tpu.vardct.enc_real import encode_vardct_real
+    from jxl_coder.vardct.enc_real import encode_vardct_real
     rng = np.random.default_rng(3)
     yy, xx = np.mgrid[0:96, 0:288]
     img = np.clip(np.stack([yy * 2 + rng.integers(0, 32, (96, 288)),

@@ -21,8 +21,8 @@ try:
 except Exception:
     HAVE_LIBJXL = False
 
-from jxl_coder_tpu import api  # noqa: E402
-from jxl_coder_tpu.ops import color as C  # noqa: E402
+from jxl_coder import api  # noqa: E402
+from jxl_coder.ops import color as C  # noqa: E402
 
 
 def _hdr_img(h=64, w=64):

@@ -11,10 +11,10 @@ import pytest
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
                                 "research"))
 
-from jxl_coder_tpu import api
-from jxl_coder_tpu.bitstream import container as C
-from jxl_coder_tpu.bitstream.reader import BitReader
-from jxl_coder_tpu.bitstream.headers import (read_image_header,
+from jxl_coder import api
+from jxl_coder.bitstream import container as C
+from jxl_coder.bitstream.reader import BitReader
+from jxl_coder.bitstream.headers import (read_image_header,
                                              ColourEncoding, CustomXY,
                                              Primaries, WhitePoint)
 

@@ -4,13 +4,13 @@ roundtrips (BASELINE config[0] shape: bit-exact lossless)."""
 import numpy as np
 import pytest
 
-from jxl_coder_tpu import api
-from jxl_coder_tpu.bitstream.reader import BitReader
-from jxl_coder_tpu.bitstream.writer import BitWriter
-from jxl_coder_tpu.modular.image import Channel, ModularImage
-from jxl_coder_tpu.modular import transform as T
-from jxl_coder_tpu.modular.tree import Tree, Node, decode_tree, encode_tree
-from jxl_coder_tpu.modular.stream import (
+from jxl_coder import api
+from jxl_coder.bitstream.reader import BitReader
+from jxl_coder.bitstream.writer import BitWriter
+from jxl_coder.modular.image import Channel, ModularImage
+from jxl_coder.modular import transform as T
+from jxl_coder.modular.tree import Tree, Node, decode_tree, encode_tree
+from jxl_coder.modular.stream import (
     GroupHeader, decode_modular_stream, encode_modular_stream)
 
 
@@ -190,11 +190,11 @@ def test_lossless_roundtrip_natural_image():
 
 
 def test_multigroup_roundtrip():
-    from jxl_coder_tpu.bitstream.headers import (
+    from jxl_coder.bitstream.headers import (
         ImageHeader, ImageMetadata, SizeHeader, BitDepth, read_image_header)
-    from jxl_coder_tpu.bitstream.frame_header import (
+    from jxl_coder.bitstream.frame_header import (
         FrameHeader, Encoding, read_frame_header, read_toc)
-    from jxl_coder_tpu import codec
+    from jxl_coder import codec
     r = rng()
     h, w = 150, 200
     planes = [r.integers(0, 85, (h, w)).astype(np.int32) for _ in range(3)]
@@ -225,7 +225,7 @@ def test_multigroup_roundtrip():
 def test_lossless_effort_ladder():
     """Effort 1-10 maps to real search depth (JxlEffort.kt semantics):
     sizes non-increasing from effort 3 up, every level round-trips."""
-    from jxl_coder_tpu import api
+    from jxl_coder import api
     rng = np.random.default_rng(2)
     yy, xx = np.mgrid[0:96, 0:128]
     img = np.clip(np.stack([120 + 70 * np.sin(yy / 17.0),
@@ -249,7 +249,7 @@ def test_palette_transform_encode():
     one index channel + the palette meta-channel), roundtrip exactly,
     and come out far smaller than the RCT path."""
     import numpy as np
-    from jxl_coder_tpu import api
+    from jxl_coder import api
     rng = np.random.default_rng(4)
     colors = np.array([[235, 235, 235], [25, 25, 25], [200, 40, 40],
                        [40, 90, 210]], np.uint8)
@@ -280,14 +280,14 @@ def test_device_undo_transforms_bit_exact():
     streams."""
     import copy
     import numpy as np
-    from jxl_coder_tpu.modular.image import Channel, ModularImage
-    from jxl_coder_tpu.modular.stream import (GroupHeader,
+    from jxl_coder.modular.image import Channel, ModularImage
+    from jxl_coder.modular.stream import (GroupHeader,
                                               apply_meta_transforms,
                                               undo_transforms)
-    from jxl_coder_tpu.modular import transform as T
-    from jxl_coder_tpu.modular import device as MDEV
-    from jxl_coder_tpu.bitstream.writer import BitWriter
-    from jxl_coder_tpu.bitstream.reader import BitReader
+    from jxl_coder.modular import transform as T
+    from jxl_coder.modular import device as MDEV
+    from jxl_coder.bitstream.writer import BitWriter
+    from jxl_coder.bitstream.reader import BitReader
 
     rng = np.random.default_rng(11)
 
@@ -323,17 +323,17 @@ def test_device_modular_full_decode_exact():
     forced must stay bit-exact."""
     import os
     import numpy as np
-    from jxl_coder_tpu import api
+    from jxl_coder import api
     rng = np.random.default_rng(5)
     img = rng.integers(0, 255, (1200, 900, 3)).astype(np.uint8)
     data = api.encode(img, lossless=True, effort=3)
-    old = os.environ.get("JXL_TPU_MODULAR_DEVICE")
-    os.environ["JXL_TPU_MODULAR_DEVICE"] = "1"
+    old = os.environ.get("JXL_MODULAR_DEVICE")
+    os.environ["JXL_MODULAR_DEVICE"] = "1"
     try:
         out, _ = api.decode(data)
     finally:
         if old is None:
-            os.environ.pop("JXL_TPU_MODULAR_DEVICE", None)
+            os.environ.pop("JXL_MODULAR_DEVICE", None)
         else:
-            os.environ["JXL_TPU_MODULAR_DEVICE"] = old
+            os.environ["JXL_MODULAR_DEVICE"] = old
     assert np.array_equal(out, img)

@@ -7,8 +7,8 @@ import pytest
 def test_wp_forward_native_matches_python():
     """The native forward-WP pass (hostcodec.cpp wp_forward) must match
     the Python oracle exactly — prediction and property planes."""
-    from jxl_coder_tpu.modular import learn
-    import jxl_coder_tpu.native as nm
+    from jxl_coder.modular import learn
+    import jxl_coder.native as nm
     if nm.get_lib() is None:
         pytest.skip("native lib unavailable")
     rng = np.random.default_rng(7)
@@ -30,9 +30,9 @@ def test_native_whole_node_split_matches_oracle():
     EXACTLY (same quantile rule, tie order and costs -> identical
     trees)."""
     import numpy as np
-    from jxl_coder_tpu.modular import learn as L
-    from jxl_coder_tpu.modular.image import Channel
-    from jxl_coder_tpu import native as NM
+    from jxl_coder.modular import learn as L
+    from jxl_coder.modular.image import Channel
+    from jxl_coder import native as NM
     if NM.get_lib() is None:
         import pytest
         pytest.skip("native library unavailable")

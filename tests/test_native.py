@@ -4,14 +4,14 @@ bit-for-bit."""
 import numpy as np
 import pytest
 
-from jxl_coder_tpu import native as native_mod
-from jxl_coder_tpu.bitstream.reader import BitReader
-from jxl_coder_tpu.bitstream.writer import BitWriter
-from jxl_coder_tpu.entropy.coder import TokenStream, EntropyDecoder
-from jxl_coder_tpu.modular.image import Channel, ModularImage
-from jxl_coder_tpu.modular.stream import (
+from jxl_coder import native as native_mod
+from jxl_coder.bitstream.reader import BitReader
+from jxl_coder.bitstream.writer import BitWriter
+from jxl_coder.entropy.coder import TokenStream, EntropyDecoder
+from jxl_coder.modular.image import Channel, ModularImage
+from jxl_coder.modular.stream import (
     GroupHeader, encode_modular_stream, decode_modular_stream)
-from jxl_coder_tpu.modular.tree import Tree, Node
+from jxl_coder.modular.tree import Tree, Node
 
 needs_native = pytest.mark.skipif(native_mod.get_lib() is None,
                                   reason="native toolchain unavailable")
@@ -67,7 +67,7 @@ def test_native_channel_decode_matches(predictor):
     assert np.array_equal(img.channels[0].data, orig)
     # decode via forced-python for cross-check
     import os
-    import jxl_coder_tpu.native as nm
+    import jxl_coder.native as nm
     saved = nm._lib
     nm._lib = None
     try:
@@ -103,7 +103,7 @@ def test_native_tree_contexts_and_lz77():
 
 @needs_native
 def test_native_full_api_roundtrip():
-    from jxl_coder_tpu import api
+    from jxl_coder import api
     r = rng()
     x = r.integers(0, 65535, (48, 60, 3)).astype(np.uint16)
     data = api.encode(x, lossless=True)
@@ -115,8 +115,8 @@ def test_native_full_api_roundtrip():
 def test_native_greedy_decide_matches_oracle():
     """greedy_decide_native must reproduce the Python oracle exactly
     (same sat float order, same tie behaviour)."""
-    from jxl_coder_tpu.vardct import enc_real as ER
-    from jxl_coder_tpu import native as NM
+    from jxl_coder.vardct import enc_real as ER
+    from jxl_coder import native as NM
     r = rng()
     for _trial in range(4):
         ys_b, xs_b = int(r.integers(8, 48)), int(r.integers(8, 48))

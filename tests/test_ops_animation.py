@@ -5,11 +5,11 @@ import io
 import numpy as np
 import pytest
 
-from jxl_coder_tpu import api
-from jxl_coder_tpu import animation as anim
-from jxl_coder_tpu.ops import resize as R
-from jxl_coder_tpu.ops import alpha as A
-from jxl_coder_tpu.ops import pack as PK
+from jxl_coder import api
+from jxl_coder import animation as anim
+from jxl_coder.ops import resize as R
+from jxl_coder.ops import alpha as A
+from jxl_coder.ops import pack as PK
 
 
 def rng():
@@ -175,7 +175,7 @@ def test_apng_to_jxl_bit_exact():
 # ---- GOP batch decode + PIL plugin + knobs -------------------------------
 
 def test_gop_sharded_batch_decode():
-    from jxl_coder_tpu.parallel import groups as G
+    from jxl_coder.parallel import groups as G
     r = rng()
     w, h, n = 128, 64, 8
     enc = anim.AnimatedEncoder(w, h, lossless=False, quality=88)
@@ -203,7 +203,7 @@ def test_iter_frames():
 def test_pil_plugin_roundtrip():
     import io as _io
     from PIL import Image
-    from jxl_coder_tpu.integrations import pil_plugin
+    from jxl_coder.integrations import pil_plugin
     pil_plugin.register()
     r = rng()
     img = r.integers(0, 255, (24, 32, 3)).astype(np.uint8)
@@ -229,10 +229,10 @@ def test_decoding_speed_drops_filters():
     # filters); the default encodes with gaborish on.
     r = rng()
     img = r.integers(0, 255, (32, 32, 3)).astype(np.uint8)
-    from jxl_coder_tpu.bitstream.reader import BitReader
-    from jxl_coder_tpu.bitstream.container import extract_codestream
-    from jxl_coder_tpu.bitstream.headers import read_image_header
-    from jxl_coder_tpu.bitstream.frame_header import read_frame_header
+    from jxl_coder.bitstream.reader import BitReader
+    from jxl_coder.bitstream.container import extract_codestream
+    from jxl_coder.bitstream.headers import read_image_header
+    from jxl_coder.bitstream.frame_header import read_frame_header
     for ds, gab, epf in ((0, True, 1), (1, True, 0), (2, False, 0),
                          (4, False, 0)):
         data = api.encode(img, lossless=False, quality=90,
@@ -245,7 +245,7 @@ def test_decoding_speed_drops_filters():
 
 
 def test_animation_player_prefetch():
-    from jxl_coder_tpu.animation import (AnimatedEncoder, AnimatedImage,
+    from jxl_coder.animation import (AnimatedEncoder, AnimatedImage,
                                          AnimatedStore, AnimationPlayer)
     enc = AnimatedEncoder(48, 32, lossless=True)
     frames = []
@@ -265,8 +265,8 @@ def test_animation_player_prefetch():
 
 
 def test_trace_spans_and_config():
-    from jxl_coder_tpu.utils import trace
-    from jxl_coder_tpu import config as cfg
+    from jxl_coder.utils import trace
+    from jxl_coder import config as cfg
     trace.enable(True)
     try:
         with trace.span("outer"):
@@ -316,8 +316,8 @@ def test_sharded_frame_reconstruct_synthetic():
     reconstruction; this keeps the shard_map program itself covered.)"""
     import jax
     import jax.numpy as jnp
-    from jxl_coder_tpu.parallel import groups as G
-    from jxl_coder_tpu.vardct import pipeline as P
+    from jxl_coder.parallel import groups as G
+    from jxl_coder.vardct import pipeline as P
     if len(jax.devices()) < 8:
         import pytest
         pytest.skip("needs 8 virtual devices")
@@ -352,7 +352,7 @@ def test_random_access_cropped_blended_frames():
     SkipFrames, interop/JxlAnimatedDecoder.cpp:40-57)."""
     import os
     from tests.conftest import asset
-    from jxl_coder_tpu import api
+    from jxl_coder import api
     data = asset("animated_jxl.jxl")
     frames, durations, info = api.decode_frames(data)
     img = anim.AnimatedImage(data)
@@ -368,7 +368,7 @@ def test_animated_lossy_alpha_and_ec_distance():
     """Lossy animated frames keep alpha as an extra channel; the
     per-extra-channel distance knob pre-quantizes it
     (interop/JxlAnimatedEncoder.hpp:164-196 analogue)."""
-    from jxl_coder_tpu.animation import AnimatedEncoder, AnimatedImage
+    from jxl_coder.animation import AnimatedEncoder, AnimatedImage
     rng = np.random.default_rng(6)
     frames = []
     for k in range(2):
@@ -402,8 +402,8 @@ def test_decode_animated_returns_last_frame():
     buffer per FULL_IMAGE event, so decoding an animated stream yields
     the LAST composed frame — api.decode must match."""
     import numpy as np
-    from jxl_coder_tpu import api
-    from jxl_coder_tpu.animation import AnimatedEncoder
+    from jxl_coder import api
+    from jxl_coder.animation import AnimatedEncoder
     rng = np.random.default_rng(8)
     enc = AnimatedEncoder(width=48, height=40, num_loops=0)
     frames = [rng.integers(0, 256, (40, 48, 3)).astype(np.uint8)
@@ -422,7 +422,7 @@ def test_pil_plugin_animated_roundtrip():
     integration reaching JxlAnimatedEncoder.kt:38-118)."""
     import io as _io
     from PIL import Image
-    from jxl_coder_tpu.integrations import pil_plugin
+    from jxl_coder.integrations import pil_plugin
     pil_plugin.register()
     frames = [Image.fromarray(np.full((16, 20, 3), v, np.uint8))
               for v in (10, 120, 230)]
@@ -450,7 +450,7 @@ def test_compose_frame_ec_blend_modes():
     (ALPHA_WEIGHTED_ADD) and 4 (MUL) — round-4 VERDICT missing #5.
     Oracle math computed by hand on small planes."""
     from types import SimpleNamespace as NS
-    from jxl_coder_tpu import api as _api
+    from jxl_coder import api as _api
 
     def mk(mode, alpha_channel=0, clamp=False):
         return NS(mode=mode, alpha_channel=alpha_channel, clamp=clamp)

@@ -1,6 +1,6 @@
 """Device (JAX) full-strategy VarDCT reconstruction vs the host path.
 
-The device pipeline (vardct/tpu_full.py) runs dequant + CfL + every
+The device pipeline (vardct/device_full.py) runs dequant + CfL + every
 inverse transform + filters + XYB->sRGB in float32 on device; the host
 reference computes in float64.  Output may differ by at most 1 output
 code on rounding-boundary pixels.
@@ -18,7 +18,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
 
 HAVE_LIBJXL = bool(ctypes.util.find_library("jxl"))
 
-from jxl_coder_tpu import api  # noqa: E402
+from jxl_coder import api  # noqa: E402
 
 
 def _test_image(h=192, w=256, seed=3):
@@ -33,19 +33,17 @@ def _test_image(h=192, w=256, seed=3):
 
 
 def _host_vs_device(data):
-    prev = os.environ.get("JXL_TPU_DEVICE")
+    prev = os.environ.get("JXL_DEVICE")
     try:
-        os.environ["JXL_TPU_DEVICE"] = "0"
+        os.environ["JXL_DEVICE"] = "0"
         host, _ = api.decode(data)
-        os.environ["JXL_TPU_DEVICE"] = "1"
-        os.environ["JXL_TPU_DEVICE_STRICT"] = "1"
+        os.environ["JXL_DEVICE"] = "1"
         dev, _ = api.decode(data)
     finally:
-        os.environ.pop("JXL_TPU_DEVICE_STRICT", None)
         if prev is None:
-            os.environ.pop("JXL_TPU_DEVICE", None)
+            os.environ.pop("JXL_DEVICE", None)
         else:
-            os.environ["JXL_TPU_DEVICE"] = prev
+            os.environ["JXL_DEVICE"] = prev
     return host, dev
 
 
@@ -85,18 +83,18 @@ def test_device_matches_host_16bit_corpus():
 
 def test_multihost_dryrun_two_processes():
     """jax.distributed 2-process x 2-device CPU mesh: the GOP-sharded
-    (DCN x ICI) decode must produce bit-exact shards in every process
+    decode must produce bit-exact shards in every process
     (SURVEY §7 step 10, BASELINE 2-host metric skeleton)."""
-    from jxl_coder_tpu.parallel.multihost import multihost_dryrun
+    from jxl_coder.parallel.multihost import multihost_dryrun
     multihost_dryrun(2, 2)
 
 
 def test_decode_batch_pipelined(monkeypatch):
     """api.decode_batch: pipelined host-parse + device-reconstruct path
     matches decode() per file (<=1), incl. a modular fallback file."""
-    monkeypatch.setenv("JXL_TPU_DEVICE", "1")
-    from jxl_coder_tpu import api
-    from jxl_coder_tpu.vardct.enc_real import encode_vardct_real
+    monkeypatch.setenv("JXL_DEVICE", "1")
+    from jxl_coder import api
+    from jxl_coder.vardct.enc_real import encode_vardct_real
     rng = np.random.default_rng(9)
     yy, xx = np.mgrid[0:96, 0:160]
     datas = []
@@ -118,10 +116,9 @@ def test_device_int8_exception_path(monkeypatch):
     """Values beyond int8 must flow through the exception scatter: a
     high-contrast image at tiny distance produces coefficients in the
     hundreds."""
-    monkeypatch.setenv("JXL_TPU_DEVICE", "1")
-    monkeypatch.setenv("JXL_TPU_DEVICE_STRICT", "1")
-    from jxl_coder_tpu import api
-    from jxl_coder_tpu.vardct.enc_real import encode_vardct_real
+    monkeypatch.setenv("JXL_DEVICE", "1")
+    from jxl_coder import api
+    from jxl_coder.vardct.enc_real import encode_vardct_real
     yy, xx = np.mgrid[0:64, 0:128]
     img = np.clip(128 + 127 * np.sin(yy / 3.2) * np.sin(xx / 3.5),
                   0, 255).astype(np.uint8)
@@ -130,46 +127,46 @@ def test_device_int8_exception_path(monkeypatch):
     # exception-scatter form, one falls back to int16 (verified by the
     # probe in the commit message)
     data = encode_vardct_real(img, distance=0.1, effort=3)
-    monkeypatch.setenv("JXL_TPU_DEVICE", "0")
+    monkeypatch.setenv("JXL_DEVICE", "0")
     host, _ = api.decode(data)
-    monkeypatch.setenv("JXL_TPU_DEVICE", "1")
+    monkeypatch.setenv("JXL_DEVICE", "1")
     dev, _ = api.decode(data)
     assert np.abs(host.astype(int) - dev.astype(int)).max() <= 1
 
 
 def test_device_dispatch_default(monkeypatch):
-    """With JXL_TPU_DEVICE unset, the device path is THE path whenever
+    """With JXL_DEVICE unset, the device path is THE path whenever
     an accelerator backend is attached (host fallback on CPU-only
     hosts); the env var remains a force-override both ways.  Mirrors
     the reference, where the threaded codec path is simply the decode
     path (interop/JxlDecoding.cpp:46-60)."""
-    from jxl_coder_tpu.vardct import tpu_full as TF
-    monkeypatch.delenv("JXL_TPU_DEVICE", raising=False)
+    from jxl_coder import backend
+    from jxl_coder.vardct import device_full as TF
+    monkeypatch.delenv("JXL_DEVICE", raising=False)
 
-    monkeypatch.setattr(TF, "_accelerator_present", lambda: True)
+    monkeypatch.setattr(backend, "accelerator_present", lambda: True)
     assert TF.device_enabled()
-    monkeypatch.setattr(TF, "_accelerator_present", lambda: False)
+    monkeypatch.setattr(backend, "accelerator_present", lambda: False)
     assert not TF.device_enabled()
 
     # overrides beat autodetect in both directions
-    monkeypatch.setenv("JXL_TPU_DEVICE", "1")
+    monkeypatch.setenv("JXL_DEVICE", "1")
     assert TF.device_enabled()
-    monkeypatch.setattr(TF, "_accelerator_present", lambda: True)
-    monkeypatch.setenv("JXL_TPU_DEVICE", "0")
+    monkeypatch.setattr(backend, "accelerator_present", lambda: True)
+    monkeypatch.setenv("JXL_DEVICE", "0")
     assert not TF.device_enabled()
 
 
 def test_device_dispatch_autodetect_cpu():
     """Under the CPU-forced test harness, autodetect resolves False."""
-    from jxl_coder_tpu.vardct import tpu_full as TF
-    TF._accelerator_present.cache_clear()
-    assert TF._accelerator_present() is False
+    from jxl_coder import backend
+    assert backend.accelerator_present() is False
 
 
 def test_multihost_encode_dryrun_two_processes():
     """GOP-sharded ENCODE across 2 jax.distributed processes: the
     bitstreams must be byte-identical to the single-process run
     (BASELINE configs 3-4)."""
-    from jxl_coder_tpu.parallel.multihost import multihost_encode_dryrun
+    from jxl_coder.parallel.multihost import multihost_encode_dryrun
     r = multihost_encode_dryrun(2, 2, timeout=600.0)
     assert r["byte_identical"]

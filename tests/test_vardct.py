@@ -6,11 +6,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from jxl_coder_tpu.vardct.dct import dct2d, idct2d, dct_matrix, blockify, \
+from jxl_coder.vardct.dct import dct2d, idct2d, dct_matrix, blockify, \
     unblockify
-from jxl_coder_tpu.vardct.xyb import linear_rgb_to_xyb, xyb_to_linear_rgb
-from jxl_coder_tpu.ops import color as C
-from jxl_coder_tpu import api
+from jxl_coder.vardct.xyb import linear_rgb_to_xyb, xyb_to_linear_rgb
+from jxl_coder.ops import color as C
+from jxl_coder import api
 
 
 def rng():
@@ -135,9 +135,9 @@ def test_sharded_real_reconstruct_matches_single_device():
     independently with cross-group filter borders; here the equivalent is
     block-row sharding + ppermute halos)."""
     import jax
-    from jxl_coder_tpu.parallel import groups as G
-    from jxl_coder_tpu.vardct import tpu_real as tr
-    from jxl_coder_tpu.vardct import synthesis as S
+    from jxl_coder.parallel import groups as G
+    from jxl_coder.vardct import device_real as tr
+    from jxl_coder.vardct import synthesis as S
 
     if len(jax.devices()) < 8:
         import pytest
@@ -174,9 +174,9 @@ def test_sharded_real_reconstruct_matches_single_device():
 
 def test_splines_parse_roundtrip():
     """Splines.write -> Splines.read preserves every field."""
-    from jxl_coder_tpu.bitstream.writer import BitWriter
-    from jxl_coder_tpu.bitstream.reader import BitReader
-    from jxl_coder_tpu.vardct.splines import Splines, QuantizedSpline
+    from jxl_coder.bitstream.writer import BitWriter
+    from jxl_coder.bitstream.reader import BitReader
+    from jxl_coder.vardct.splines import Splines, QuantizedSpline
     rng = np.random.default_rng(11)
     splines = []
     for i in range(3):
@@ -205,12 +205,12 @@ def test_progressive_two_pass_encode():
     whose accumulated decode is IDENTICAL to the single-pass stream's
     (the split v = (v0 << 1) + v1 is exact)."""
     import numpy as np
-    from jxl_coder_tpu import api
-    from jxl_coder_tpu.vardct.enc_real import encode_vardct_real
-    from jxl_coder_tpu.bitstream import container as container_mod
-    from jxl_coder_tpu.bitstream.reader import BitReader
-    from jxl_coder_tpu.bitstream.headers import read_image_header
-    from jxl_coder_tpu.bitstream.frame_header import read_frame_header
+    from jxl_coder import api
+    from jxl_coder.vardct.enc_real import encode_vardct_real
+    from jxl_coder.bitstream import container as container_mod
+    from jxl_coder.bitstream.reader import BitReader
+    from jxl_coder.bitstream.headers import read_image_header
+    from jxl_coder.bitstream.frame_header import read_frame_header
     rng = np.random.default_rng(9)
     yy, xx = np.mgrid[0:96, 0:160]
     img = np.clip(np.stack(
@@ -242,7 +242,7 @@ def test_decode_preview_pass0():
     pass only: lower fidelity than the full decode but a faithful
     image; non-progressive streams decode identically to decode()."""
     import numpy as np
-    from jxl_coder_tpu import api
+    from jxl_coder import api
     rng = np.random.default_rng(6)
     yy, xx = np.mgrid[0:96, 0:128]
     img = np.clip(np.stack(
